@@ -7,7 +7,7 @@
 // block pacing + processor-load accounting (Process.cpp:94,941;
 // InfoBox.cpp:341-371), and the SD WAV reader (Utility.cpp:773-888).
 //
-// The TPU compute path stays in JAX/XLA; this library is the host-side
+// The device compute path stays in JAX/XLA; this library is the host-side
 // plumbing around it: lock-free SPSC block rings between an acquisition
 // thread and the compute loop, a paced file streamer that replays
 // captures at real-time (or max) rate, and WAV parsing tuned for large

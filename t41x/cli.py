@@ -67,6 +67,10 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
 
+    from t41x.utils import compile_cache
+
+    compile_cache.enable()
+
     from t41x.config import RadioConfig
     from t41x.radio import Radio
 

@@ -9,8 +9,8 @@ dit/dah clustering via signal-length histograms and a geometric-mean
 threshold, walking a binary Morse tree to emit characters.
 
 This is control-flow-heavy, branchy, sample-sparse work — host code by
-design (SURVEY.md §7 phase 5); the dense tone detection runs on TPU
-(t41x.demod.cw).
+design (SURVEY.md §7 phase 5); the dense tone detection runs on the
+device (t41x.demod.cw).
 """
 
 from __future__ import annotations

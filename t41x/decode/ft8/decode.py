@@ -157,8 +157,6 @@ def decode_audio(audio: np.ndarray, k_candidates: int | None = None,
     config.my_grid) to get `distance_km` on decodes that carry a grid
     (reference `set_Station_Coordinates` + `Target_Distance`,
     locator.cpp:30-45)."""
-    from t41x.utils.transfer import fetch
-
     if k_candidates is not None:
         cands, result = _jit_pipeline(jnp.asarray(audio, jnp.float32),
                                       k_candidates, bp_iters)
@@ -170,7 +168,7 @@ def decode_audio(audio: np.ndarray, k_candidates: int | None = None,
             # returning [] would be wrong — decode the full pool instead
             score_floor = -np.inf
         wf, pool = _jit_wf_pool(jnp.asarray(audio, jnp.float32), _K_POOL)
-        pool_scores = fetch(pool.score)
+        pool_scores = np.asarray(pool.score)
         n_above = int(np.sum(pool_scores >= score_floor))
         if n_above == 0:
             return []
@@ -178,12 +176,12 @@ def decode_audio(audio: np.ndarray, k_candidates: int | None = None,
         cands = jax.tree.map(lambda a: a[:k], pool)
         result = _jit_llr_bp(wf, cands, bp_iters)
 
-    errors = fetch(result.errors)
-    bits = fetch(result.bits)
-    scores = fetch(cands.score)
-    dts = fetch(cands.time_offset)
-    dfs = fetch(cands.freq_offset)
-    fsub = fetch(cands.freq_sub)
+    errors = np.asarray(result.errors)
+    bits = np.asarray(result.bits)
+    scores = np.asarray(cands.score)
+    dts = np.asarray(cands.time_offset)
+    dfs = np.asarray(cands.freq_offset)
+    fsub = np.asarray(cands.freq_sub)
 
     out: list[Decoded] = []
     seen: set[str] = set()

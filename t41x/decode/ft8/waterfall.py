@@ -5,7 +5,7 @@ tmr4/T41_SDR `ft8.cpp:223-256`): a log-power waterfall over the 15 s
 receive slot with 2x oversampling in both time and frequency, feeding
 the Costas sync search and soft-bit extraction.
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate, batch-first):
   * operates directly on the 24 kHz demodulated audio — no q15
     index-skip decimation to 6.4 kHz; the FFT length scales instead
     (3840-sample hop = 0.16 s; 7680-sample window = 2 symbols for the
@@ -13,7 +13,7 @@ Differences from the reference (deliberate, TPU-first):
   * float32 throughout; the waterfall stays in dB floats rather than
     the reference's byte quantization
   * all time slots are computed as ONE batched rFFT — the whole 15 s
-    slot is a single (n_frames, fft) tensor op, ideal MXU/VPU work
+    slot is a single (n_frames, fft) tensor op
   * RECTANGULAR symbol window, not the reference's Blackman
     (`ft_blackman_i` `ft8.cpp:168`): 6.25 Hz-spaced FSK tones are
     orthogonal over exactly one 0.16 s symbol, so the rectangular
@@ -33,10 +33,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from t41x.kernels import mxu_fft
-import numpy as np
-
 from t41x import constants as C
+from t41x.dsp import dft
 
 SYMBOL_SECONDS = 0.16
 TONE_SPACING = 6.25
@@ -69,7 +67,7 @@ def compute_waterfall(audio: jnp.ndarray, rate: float = C.AUDIO_RATE):
            + jnp.arange(win)[None, :])                # (F, win)
     frames = audio[..., idx]                          # (..., F, win)
     # rectangular window = the FSK matched filter (see module docstring)
-    spec = mxu_fft.rfft(frames, n=fft_len, axis=-1)
+    spec = dft.rfft(frames, n=fft_len, axis=-1)
     power = spec.real ** 2 + spec.imag ** 2
     db = 10.0 * jnp.log10(jnp.maximum(power, 1e-12))
 

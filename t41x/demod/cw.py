@@ -8,7 +8,7 @@ Goertzel magnitude at 750 Hz (`goertzel_mag` `CWProcessing.cpp:830-857`)
 -> combined coefficient -> binary keying decision (threshold 50).
 
 The per-block binary envelope feeds the host-side adaptive Morse decoder
-(t41x.decode.cw_text).  On TPU the correlation is one matmul against a
+(t41x.decode.cw_text).  On the device the correlation is one matmul against a
 bank of shifted reference sines and the Goertzel is a dot product (no
 sequential recurrence needed — Goertzel IS the DFT bin).
 """
@@ -80,24 +80,13 @@ class CWDetector:
         Returns (state, keyed, combined) with keyed (...,) bool."""
         from t41x.dsp import fir
 
-        import jax
-
         fir_st, x = fir.fir_apply(st.fir, audio, jnp.asarray(self.h))
-        # DETECTION statistics, not audio: the correlation bank and
-        # Goertzel bin feed a thresholded keying decision with >2x
-        # margins, so single-pass bf16 matmuls (fp32 accumulation) are
-        # ample — the (C, 256) x (256, 511) lag matmul was the CW
-        # path's dominant cost at 3-pass precision
-        det = jax.lax.Precision.DEFAULT
-        corr = jnp.matmul(x, jnp.asarray(self.corr_matrix).T,
-                          precision=det)                 # (..., 511)
+        corr = jnp.matmul(x, jnp.asarray(self.corr_matrix).T)  # (..., 511)
         corr_max = jnp.max(corr, axis=-1)
         ave_corr = 0.7 * corr_max + 0.3 * st.ave_corr
 
-        real = jnp.einsum("...n,n->...", x, jnp.asarray(self.goertzel_cos),
-                          precision=det)
-        imag = jnp.einsum("...n,n->...", x, jnp.asarray(self.goertzel_sin),
-                          precision=det)
+        real = jnp.einsum("...n,n->...", x, jnp.asarray(self.goertzel_cos))
+        imag = jnp.einsum("...n,n->...", x, jnp.asarray(self.goertzel_sin))
         mag = jnp.sqrt(real * real + imag * imag) / (BLOCK / 2.0)
 
         combined = 10.0 * corr_max * 100.0 * mag

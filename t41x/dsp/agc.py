@@ -145,9 +145,8 @@ def agc_state(params: AGCParams, channels: tuple[int, ...] = ()) -> AGCState:
 
 def _cummax_logshift(ch: jnp.ndarray, reverse: bool = False) -> jnp.ndarray:
     """Within-chunk cumulative max over the last axis via log2(width)
-    shifted-max passes.  `lax.cummax` lowers to a sequential/associative
-    scan that costs ~150 us on a (1024, 4, 96) tile on TPU; these are
-    ~7 cheap elementwise maxes of statically-shifted slices instead."""
+    shifted-max passes: ~7 elementwise maxes of statically-shifted
+    slices, which fuse, in place of `lax.cummax`'s scan."""
     w = ch.shape[-1]
     s = 1
     while s < w:
@@ -188,7 +187,7 @@ def _sliding_window_max(a: jnp.ndarray, width: int) -> jnp.ndarray:
 def agc_step(p: AGCParams, carry, rm, ao):
     """One AGC sample update (the 5-state attack/decay/hang machine) on
     arbitrarily-shaped channel tiles.  Shared by the lax.scan path below
-    and the Pallas kernel (`t41x/kernels/agc_pallas.py`); the scalar
+    and the Triton kernel (`t41x/kernels/agc_triton.py`); the scalar
     oracle test pins its semantics."""
     (volts, save_volts, fast_backaverage, hang_backaverage,
      hang_counter0, decay_type, state) = carry
@@ -234,7 +233,7 @@ def agc_step(p: AGCParams, carry, rm, ao):
     s4_volts = volts + diff * p.hang_decay_mult
 
     # nested wheres rather than jnp.select: identical first-true-wins
-    # semantics, and select's argmax lowering is unsupported in Mosaic
+    # semantics, and every kernel route lowers select_n
     is0, is1, is2, is3 = (state == 0), (state == 1), (state == 2), (state == 3)
     rel_volts = jnp.where(
         is0, s0_volts, jnp.where(
@@ -258,20 +257,22 @@ def agc_step(p: AGCParams, carry, rm, ao):
 
 
 def agc_apply(params: AGCParams, st: AGCState, x: jnp.ndarray,
-              use_pallas: bool = False):
+              kernel: str | None = None):
     """Apply AGC to a complex block.
 
     x: (..., N) complex (I + jQ at audio rate)
     Returns (new_state, y) with y complex and delayed by attack_buffsize
     samples (the look-ahead delay line, like the reference).
 
-    TPU structure: everything that does not depend on the gain recurrence
-    is hoisted out of the sample scan — the look-ahead delay (a slice of
+    Everything that does not depend on the gain recurrence is hoisted
+    out of the sample loop: the look-ahead delay (a slice of
     [carried ring | block]), the sliding-window peak (parallel chunked
-    cummax), and the final log-domain gain curve.  The scan itself
-    carries only seven per-channel scalars (volts, averages, counters,
-    state), so each sequential step is a handful of vector ops with no
-    ring-buffer traffic.  Semantics are unchanged vs the scalar oracle
+    cummax), and the final delayed multiply.  The loop itself carries
+    only seven per-channel scalars (volts, averages, counters, state).
+    `kernel` picks how the loop runs: None is a `lax.scan`, "triton"
+    the Pallas-Triton kernel (`t41x.kernels.agc_triton`) compiled for
+    the GPU, "interpret" that kernel in the Pallas interpreter.
+    Semantics are unchanged vs the scalar oracle
     (`tests/test_agc_oracle.py`).
     """
     if params.mode == 0:
@@ -280,13 +281,6 @@ def agc_apply(params: AGCParams, st: AGCState, x: jnp.ndarray,
     p = params
     B = p.attack_buffsize
     N = x.shape[-1]
-
-    if use_pallas and N >= B:
-        # whole-block kernel: prework + recurrence + gain in one Pallas
-        # program (the split prework below costs ~3x the recurrence in
-        # HBM passes at scale)
-        from t41x.kernels.agc_pallas import agc_block_pallas
-        return agc_block_pallas(p, st, x)
 
     # delay line: out_sample[n] = x[n - B]  (negative index -> carried ring)
     full = jnp.concatenate([st.ring, x], axis=-1)              # (..., B+N)
@@ -301,32 +295,34 @@ def agc_apply(params: AGCParams, st: AGCState, x: jnp.ndarray,
     # i.e. sliding max of abs_full starting at offset n+1
     ring_max = _sliding_window_max(abs_full, B)[..., 1: 1 + N]
 
-    # time-major inputs for the scan
+    # time-major inputs for the sample loop
     rm_t = jnp.moveaxis(ring_max, -1, 0)
     ao_t = jnp.moveaxis(abs_out, -1, 0)
 
     carry0 = (st.volts, st.save_volts, st.fast_backaverage,
               st.hang_backaverage, st.hang_counter, st.decay_type, st.state)
-    if use_pallas:
-        from t41x.kernels.agc_pallas import agc_scan_pallas
-        (volts_f, save_volts_f, fast_f, hang_f, hc_f, dt_f, state_f), \
-            volts_seq = agc_scan_pallas(p, carry0, rm_t, ao_t)
-    else:
+    if kernel is None:
         def step(s, inp):
             rm, ao = inp
             ns = agc_step(p, s, rm, ao)
             return ns, ns[0]
 
-        (volts_f, save_volts_f, fast_f, hang_f, hc_f, dt_f, state_f), \
-            volts_seq = jax.lax.scan(step, carry0, (rm_t, ao_t), unroll=8)
-    volts_seq = jnp.moveaxis(volts_seq, 0, -1)        # (..., N)
-
-    # log-domain gain curve, vectorized over the whole block
-    mult = (p.out_target - p.slope_constant
-            * jnp.minimum(0.0, jnp.log10(p.inv_max_input * volts_seq))
-            ) / volts_seq
+        final, volts_seq = jax.lax.scan(step, carry0, (rm_t, ao_t),
+                                        unroll=8)
+        mult = gain_curve(p, jnp.moveaxis(volts_seq, 0, -1))
+    elif kernel in ("triton", "interpret"):
+        from t41x.kernels.agc_triton import agc_gain
+        final, mult_t = agc_gain(p, carry0, rm_t, ao_t,
+                                 interpret=kernel == "interpret")
+        mult = jnp.moveaxis(mult_t, 0, -1)
+    else:
+        raise ValueError(f"unknown AGC kernel {kernel!r}")
     y = delayed * mult.astype(delayed.dtype)
+    return AGCState(new_ring, new_abs_ring, *final), y
 
-    new_state = AGCState(new_ring, new_abs_ring, volts_f, save_volts_f,
-                         fast_f, hang_f, hc_f, dt_f, state_f)
-    return new_state, y
+
+def gain_curve(p: AGCParams, volts: jnp.ndarray) -> jnp.ndarray:
+    """Log-domain gain from the AGC level (`DSP_Fn.cpp:623-627`); the
+    Triton kernel applies the same function in-kernel."""
+    return (p.out_target - p.slope_constant
+            * jnp.minimum(0.0, jnp.log10(p.inv_max_input * volts))) / volts

@@ -11,13 +11,12 @@ The band filters are designed at trace time (4th-order Butterworth
 band-pass via bilinear transform) rather than shipped as baked tables;
 they match the reference filters' centers and ~0.3 fc bandwidths.
 
-TPU structure: all 14 cascades are composed at trace time into ONE
-chunk-parallel state-space operator (the same construction as the
-fused front end's zoom tap): per K-sample chunk, [x | all 56 states]
-hits two precomputed matmuls producing every band's output and the
-next states — 8 MXU steps per 256-sample block instead of a 256-step
-per-sample scan with scattered state updates (which measured 15 ms/
-block at 1024 channels on a v5e — 100x the whole rest of the chain).
+Structure: all 14 cascades are composed at trace time into ONE
+chunk-parallel state-space operator (`iir.compose_cascade_ops`): per
+K-sample chunk, [x | all 56 states] hits two precomputed matmuls
+producing every band's output and the next states — 8 matmul steps per
+256-sample block instead of a 256-step per-sample scan with scattered
+state updates.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from t41x import constants as C
+from t41x.dsp import iir
 
 NUM_BANDS = 14
 
@@ -57,8 +57,6 @@ _CHUNK = 32
 
 class EQDesign:
     def __init__(self, rate: float = C.AUDIO_RATE, chunk: int = _CHUNK):
-        from t41x.kernels.frontend_pallas import _compose_cascade_ops
-
         self.b, self.a = design_eq_bands(rate)
         self.stages = S = self.b.shape[1]
         self.chunk = K = int(chunk)
@@ -70,7 +68,7 @@ class EQDesign:
         Wy = np.zeros((K + NS, NUM_BANDS * K))
         Ws = np.zeros((K + NS, NS))
         for bi in range(NUM_BANDS):
-            L, R, G, AK = _compose_cascade_ops(self.b[bi], self.a[bi], K)
+            L, R, G, AK = iir.compose_cascade_ops(self.b[bi], self.a[bi], K)
             yc = slice(bi * K, (bi + 1) * K)
             sc = slice(K + bi * ns, K + (bi + 1) * ns)
             Wy[:K, yc] = L.T

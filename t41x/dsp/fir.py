@@ -23,9 +23,8 @@ def fir_state(taps: int, channels: tuple[int, ...] = (),
               dtype=np.float32) -> np.ndarray:
     """Zero history for a streaming FIR with `taps` coefficients.
 
-    Returned as a host (numpy) array: state is jit-function INPUT, and
-    eager device allocation is avoided (some remote backends cannot
-    execute eager ops)."""
+    Returned as a host (numpy) array: state is a jit-function input,
+    placed on the device by the call that consumes it."""
     return np.zeros(channels + (taps - 1,), np.dtype(dtype).name)
 
 

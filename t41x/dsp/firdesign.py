@@ -8,7 +8,7 @@ Functional re-expression of the reference's filter designers:
   * decimation/interpolation prototypes (`Filter.cpp:396-438`)
 
 Design runs on the host at trace/config time; the resulting coefficient
-arrays are baked into jitted TPU programs as constants.
+arrays are baked into jitted device programs as constants.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ per 256-sample audio frame —
   4. replace a +-PL window around each impulse with linearly-weighted
      forward/backward LPC predictions.
 
-TPU-first re-architecture: instead of per-impulse pointer surgery, the
+Batch-first re-architecture: instead of per-impulse pointer surgery, the
 detection produces a blank MASK (dilated +-PL); forward and backward
 prediction run as two full-frame `lax.scan`s that free-run (predict)
 inside masked regions and track the input outside, then blend with the

@@ -30,11 +30,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-from t41x.kernels import mxu_fft
 import numpy as np
 
 from t41x import constants as C
+from t41x.dsp import dft
 
 NR_FFT_L = 256
 HOP = NR_FFT_L // 2  # 128
@@ -104,8 +103,7 @@ class KimState(NamedTuple):
 
 def kim_state(channels: tuple[int, ...] = ()) -> KimState:
     """Ring slots lead the bin axis ((..., slots, 128)) so each slot is
-    a contiguous lane vector — the layout the Pallas gain kernel and
-    the XLA path share.  (Changed from (..., 128, slots) in r4: old
+    a contiguous vector.  (Changed from (..., 128, slots): old
     DSP-state checkpoints fail to load with a clear shape error.)"""
     z = lambda *s: np.zeros(channels + s, np.float32)  # noqa: E731
     return KimState(z(HOP), z(HOP), z(3, HOP), z(15, HOP), z(HOP),
@@ -151,8 +149,7 @@ def _kim_gain(p: KimParams, gst, power):
     return (X, E, Gts, idx + 1), Gs
 
 
-def kim_nr(p: KimParams, st: KimState, x: jnp.ndarray,
-           use_pallas: bool = False):
+def kim_nr(p: KimParams, st: KimState, x: jnp.ndarray):
     """x: (..., 256) audio block at 24 kHz.  Returns (state, y).
 
     Latency structure: the two overlapped hops' FORWARD transforms
@@ -167,7 +164,7 @@ def kim_nr(p: KimParams, st: KimState, x: jnp.ndarray,
     frames = jnp.stack([frame0 * window, x * window], axis=0)
     # half-spectrum transforms: real frames and real gain masks make
     # the upper 128 bins redundant — half the DFT matmul flops
-    sr, si = mxu_fft.rdft_half(frames)              # (2, ..., 129)
+    sr, si = dft.rdft_half(frames)              # (2, ..., 129)
     powers = (sr ** 2 + si ** 2)[..., :HOP]
 
     # NOTE lockstep invariant: _kim_gain drives its ring cursor from
@@ -177,18 +174,9 @@ def kim_nr(p: KimParams, st: KimState, x: jnp.ndarray,
     # from different checkpoints); re-init the Kim state instead.  The
     # ring consumers (mean/min) are order-free, so a common cursor of
     # any value is safe, only cross-channel divergence is not.
-    if use_pallas:
-        # both hops' gain recursions (incl. the minimum-statistics ring
-        # rewrites) in one Pallas program — the XLA form materializes
-        # the rings twice per block (t41x.kernels.nr_gain_pallas)
-        from t41x.kernels.nr_gain_pallas import kim_gains_pallas
-
-        (X, E, Gts, idx), gs = kim_gains_pallas(
-            p, (st.X, st.E, st.Gts, st.idx), powers)
-    else:
-        gst, g0 = _kim_gain(p, (st.X, st.E, st.Gts, st.idx), powers[0])
-        (X, E, Gts, idx), g1 = _kim_gain(p, gst, powers[1])
-        gs = jnp.stack([g0, g1], axis=0)
+    gst, g0 = _kim_gain(p, (st.X, st.E, st.Gts, st.idx), powers[0])
+    (X, E, Gts, idx), g1 = _kim_gain(p, gst, powers[1])
+    gs = jnp.stack([g0, g1], axis=0)
     # Half-spectrum equivalent of the reference's mirror
     # (Noise.cpp:265-270 applies G[i] to bin i AND bin 255-i — an
     # off-by-one "conjugate" map): for a symmetric input spectrum the
@@ -198,67 +186,11 @@ def kim_nr(p: KimParams, st: KimState, x: jnp.ndarray,
     mid = 0.5 * (gs[..., 1:] + gs[..., :-1])
     fg = jnp.concatenate([gs[..., :1], mid, gs[..., HOP - 1: HOP]],
                          axis=-1)
-    outs = mxu_fft.irdft_half_real(sr * fg, si * fg)
+    outs = dft.irdft_half_real(sr * fg, si * fg)
     a0 = outs[0][..., :HOP] + st.last_ifft
     a1 = outs[1][..., :HOP] + outs[0][..., HOP:]
     new_st = KimState(x[..., HOP:], outs[1][..., HOP:], X, E, Gts, idx)
     return new_st, jnp.concatenate([a0, a1], axis=-1) * p.post_gain
-
-
-def kim_nr_batch(p: KimParams, st: KimState, xs: jnp.ndarray,
-                 use_pallas: bool = False):
-    """EXACT batched form of B sequential `kim_nr` calls (VERDICT r4
-    item 5 — cross-block NR batching).
-
-    xs: (B, ..., 256) audio blocks.  Every hop frame is a function of
-    the raw input halves alone (the gain recursion feeds only the gain
-    state, never the frames), so the whole batch factorizes into three
-    stages with NO per-block dependent chain:
-
-      * ONE forward rDFT over all 2B hop frames (bigger MXU batch),
-      * ONE gain-kernel invocation running the 2B sequential hop
-        updates with the minimum-statistics rings VMEM-resident for
-        the whole batch (vs an HBM ring round-trip per block),
-      * ONE inverse rDFT + vectorized overlap-add.
-
-    Returns (state, (B, ..., 256) audio) bit-identical in structure to
-    scanning `kim_nr` (same ring/cursor trajectory).
-    """
-    B = xs.shape[0]
-    ch = xs.shape[1:-1]
-    window = jnp.asarray(_hann())
-    # hop halves in stream order: H[2b]=xs[b,:128], H[2b+1]=xs[b,128:]
-    halves = jnp.moveaxis(xs.reshape((B,) + ch + (2, HOP)), -2, 1)
-    halves = halves.reshape((2 * B,) + ch + (HOP,))
-    prev = jnp.concatenate([st.last_sample[None], halves[:-1]], axis=0)
-    frames = jnp.concatenate([prev, halves], axis=-1) * window
-    sr, si = mxu_fft.rdft_half(frames)              # (2B, ..., 129)
-    powers = (sr ** 2 + si ** 2)[..., :HOP]
-
-    if use_pallas:
-        from t41x.kernels.nr_gain_pallas import kim_gains_pallas
-
-        (X, E, Gts, idx), gs = kim_gains_pallas(
-            p, (st.X, st.E, st.Gts, st.idx), powers)
-    else:
-        def step(gst, pw):
-            gst, g = _kim_gain(p, gst, pw)
-            return gst, g
-
-        (X, E, Gts, idx), gs = jax.lax.scan(
-            step, (st.X, st.E, st.Gts, st.idx), powers)
-    mid = 0.5 * (gs[..., 1:] + gs[..., :-1])
-    fg = jnp.concatenate([gs[..., :1], mid, gs[..., HOP - 1: HOP]],
-                         axis=-1)
-    outs = mxu_fft.irdft_half_real(sr * fg, si * fg)   # (2B, ..., 256)
-    second = jnp.concatenate([st.last_ifft[None], outs[:-1, ..., HOP:]],
-                             axis=0)
-    hops = outs[..., :HOP] + second                    # (2B, ..., 128)
-    audio = jnp.moveaxis(hops.reshape((B, 2) + ch + (HOP,)), 1, -2)
-    audio = audio.reshape((B,) + ch + (2 * HOP,)) * p.post_gain
-    new_st = KimState(xs[-1, ..., HOP:], outs[-1, ..., HOP:],
-                      X, E, Gts, idx)
-    return new_st, audio
 
 
 # ----------------------------------------------------------------------
@@ -385,7 +317,7 @@ def spectral_nr(p: SpectralParams, st: SpectralState, x: jnp.ndarray):
     frame0 = jnp.concatenate([st.last_sample, x[..., :HOP]], axis=-1)
     frames = jnp.stack([frame0 * window, x * window], axis=0)
     # half-spectrum transforms (see kim_nr): half the DFT matmul flops
-    sr, si = mxu_fft.rdft_half(frames)
+    sr, si = dft.rdft_half(frames)
     powers = (sr ** 2 + si ** 2)[..., :HOP]
 
     gst, g0, init0 = _spectral_gain(
@@ -398,7 +330,7 @@ def spectral_nr(p: SpectralParams, st: SpectralState, x: jnp.ndarray):
     mid = 0.5 * (gs[..., 1:] + gs[..., :-1])
     fg = jnp.concatenate([gs[..., :1], mid, gs[..., HOP - 1: HOP]],
                          axis=-1)
-    outs = mxu_fft.irdft_half_real(sr * fg, si * fg) * window
+    outs = dft.irdft_half_real(sr * fg, si * fg) * window
     a0 = outs[0][..., :HOP] + st.last_ifft
     a1 = outs[1][..., :HOP] + outs[0][..., HOP:]
     # during init, pass audio through untouched
@@ -411,8 +343,8 @@ def spectral_nr(p: SpectralParams, st: SpectralState, x: jnp.ndarray):
 
 def spectral_nr_batch(p: SpectralParams, st: SpectralState,
                       xs: jnp.ndarray):
-    """EXACT batched form of B sequential `spectral_nr` calls — same
-    factorization as `kim_nr_batch`: one forward rDFT over all 2B hop
+    """EXACT batched form of B sequential `spectral_nr` calls: the hop
+    frames depend only on the input, so one forward rDFT over all 2B hop
     frames, one sequential scan of the per-hop gain recursion (the only
     true dependency), one inverse rDFT + vectorized overlap-add.
     xs: (B, ..., 256).  Returns (state, (B, ..., 256))."""
@@ -423,7 +355,7 @@ def spectral_nr_batch(p: SpectralParams, st: SpectralState,
     halves = halves.reshape((2 * B,) + ch + (HOP,))
     prev = jnp.concatenate([st.last_sample[None], halves[:-1]], axis=0)
     frames = jnp.concatenate([prev, halves], axis=-1) * window
-    sr, si = mxu_fft.rdft_half(frames)
+    sr, si = dft.rdft_half(frames)
     powers = (sr ** 2 + si ** 2)[..., :HOP]
 
     def step(gst, pw):
@@ -435,7 +367,7 @@ def spectral_nr_batch(p: SpectralParams, st: SpectralState,
     mid = 0.5 * (gs[..., 1:] + gs[..., :-1])
     fg = jnp.concatenate([gs[..., :1], mid, gs[..., HOP - 1: HOP]],
                          axis=-1)
-    outs = mxu_fft.irdft_half_real(sr * fg, si * fg) * window
+    outs = dft.irdft_half_real(sr * fg, si * fg) * window
     second = jnp.concatenate([st.last_ifft[None], outs[:-1, ..., HOP:]],
                              axis=0)
     hops = outs[..., :HOP] + second
@@ -481,13 +413,12 @@ def xanr_state(p: XanrParams, channels: tuple[int, ...] = ()) -> XanrState:
     )
 
 
-def xanr(p: XanrParams, st: XanrState, x: jnp.ndarray,
-         use_pallas: bool = False):
+def xanr(p: XanrParams, st: XanrState, x: jnp.ndarray):
     """Variable-leak LMS: x (..., N) real audio -> (state, y).
 
     y is the predictor output (NR mode) or prediction error (notch mode).
 
-    TPU structure: the delay line is NOT carried through the sample scan
+    Structure: the delay line is NOT carried through the sample scan
     — its contents are pure delayed input, so the whole block's
     regressor windows are slices of one precomputed [history | block]
     buffer (`dynamic_slice` per step).  The scan carries only the
@@ -498,13 +429,6 @@ def xanr(p: XanrParams, st: XanrState, x: jnp.ndarray,
     update are elementwise-consistent); the carried `dline` field keeps
     the public newest-first convention.
     """
-    if use_pallas:
-        # whole recurrence in one Pallas program: weights/regressor
-        # buffer VMEM-resident across all N steps (the scan hauls the
-        # (C, taps) weights through HBM every sample)
-        from t41x.kernels.xanr_pallas import xanr_block_pallas
-        return xanr_block_pallas(p, st, x)
-
     T, D = p.taps, p.delay
     N = x.shape[-1]
     # oldest-first history || block: padded[T+D+j] = x[j]

@@ -8,22 +8,20 @@ half.  State is the previous half-block of samples.
 Two execution paths:
 
 * `os_filter` — jnp.fft based (works everywhere, lets XLA pick its FFT).
-* `os_filter_matmul` — the TPU-first form: because the mask multiply is
+* `os_filter_matmul` — the matmul form: because the mask multiply is
   diagonal in the DFT basis, the whole FFT->mask->iFFT->keep-half pipeline
   collapses into ONE dense complex matrix `M = (F^-1 diag(mask) F)[half:]`
   applied per block: `out = W @ xw`.  For thousands of channels this is a
-  channel-batched (C, 512) x (512, 256) matmul — pure MXU work, no FFT at
-  all.  Both paths are numerically identical to within fp32 rounding.
+  channel-batched (C, 512) x (512, 256) matmul — no FFT at all.  Both paths are numerically identical to within fp32 rounding.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-
-from t41x.kernels import mxu_fft
 import numpy as np
 
 from t41x import constants as C
+from t41x.dsp import dft
 
 
 def os_state(channels: tuple[int, ...] = (),
@@ -45,9 +43,9 @@ def os_filter(state: jnp.ndarray, x: jnp.ndarray, mask: jnp.ndarray,
     `Process.cpp:550-570`).
     """
     xw = jnp.concatenate([state, x], axis=-1)
-    X = mxu_fft.fft(xw, axis=-1)
+    X = dft.fft(xw, axis=-1)
     Y = X * mask
-    y = mxu_fft.ifft(Y, axis=-1)[..., xw.shape[-1] // 2:]
+    y = dft.ifft(Y, axis=-1)[..., xw.shape[-1] // 2:]
     if return_spectrum:
         return x, y.astype(jnp.complex64), jnp.abs(Y) ** 2
     return x, y.astype(jnp.complex64)
@@ -67,19 +65,19 @@ def os_matmul_operator(mask: np.ndarray) -> np.ndarray:
 
 
 def os_filter_matmul(state: jnp.ndarray, x: jnp.ndarray, W: jnp.ndarray):
-    """Overlap-save block as a single complex matmul (TPU hot path).
+    """Overlap-save block as a single complex matmul.
 
     W: (F/2, F) from `os_matmul_operator`.  out = xw @ W.T.
     """
     xw = jnp.concatenate([state, x], axis=-1)
-    # complex matmul via 4 real MXU matmuls (XLA does this internally for
+    # complex matmul via 4 real matmuls (XLA does this internally for
     # complex dot; spelled out keeps fp32 accumulation explicit)
     y = xw @ W.T
     return x, y.astype(jnp.complex64)
 
 
 def os_spectrum_operators(mask: np.ndarray):
-    """Split-form operators that keep the audio-spectrum tap on the MXU.
+    """Split-form operators that give the audio-spectrum tap from matmuls.
 
     Returns (F_op, W2, mask_sq):
       X    = xw @ F_op.T          — the full F-point DFT (one matmul)

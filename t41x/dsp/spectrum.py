@@ -12,8 +12,8 @@ Re-expression of the reference display DSP (tmr4/T41_SDR `FFT.cpp`):
   * `pixels_db` / `smeter_dbm` — log scaling to display pixels and the
     TCVSDR S-meter dBm formula (`Display.cpp:978-982`).
 
-The waterfall is just the time-stacked pixel rows — on TPU it falls out
-of `lax.scan` over blocks as a (n_blocks, ..., 512) tensor.
+The waterfall is just the time-stacked pixel rows — it falls out of
+`lax.scan` over blocks as a (n_blocks, ..., 512) tensor.
 """
 
 from __future__ import annotations
@@ -21,12 +21,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
-
-from t41x.kernels import mxu_fft
 import numpy as np
 
 from t41x import constants as C
-from t41x.dsp import firdesign as fd, iir
+from t41x.dsp import dft, firdesign as fd, iir
 
 RES = C.SPECTRUM_RES  # 512
 EMA = 0.7             # spectrum temporal smoothing (FFT.cpp:171)
@@ -50,10 +48,9 @@ def zoom1_spectrum(spec_old: jnp.ndarray, iq: jnp.ndarray):
 
 
 def zoom1_from_segment(spec_old: jnp.ndarray, seg: jnp.ndarray):
-    """Zoom x1 tail from the first 512 I/Q samples of a block (the fused
-    Pallas front end emits this segment directly)."""
+    """Zoom x1 tail from the first 512 I/Q samples of a block."""
     w = jnp.asarray(_hann(RES))
-    spec = mxu_fft.fft(seg * w, axis=-1)
+    spec = dft.fft(seg * w, axis=-1)
     power = _swap_halves(spec.real ** 2 + spec.imag ** 2)
     sm = EMA * power + (1.0 - EMA) * spec_old
     return sm, sm
@@ -104,8 +101,7 @@ class ZoomFFT:
 
     def prefilter(self, st: "ZoomState", iq: jnp.ndarray):
         """Anti-alias IIR + decimate-by-2^zoom (the RF-rate half of the
-        zoom tap — this is the part the fused Pallas front end computes
-        in-kernel).  Returns (state-with-new-iir/dec, decimated I/Q)."""
+        zoom tap).  Returns (state-with-new-iir/dec, decimated I/Q)."""
         from t41x.dsp import fir
 
         xi = jnp.stack([iq.real, iq.imag], axis=-2)  # (..., 2, N)
@@ -124,7 +120,7 @@ class ZoomFFT:
         else:
             ring = jnp.concatenate([st.ring[..., n_new:], x], axis=-1)
         w = jnp.asarray(_hann(RES))
-        spec = mxu_fft.fft(ring * (self.multiplier * w), axis=-1)
+        spec = dft.fft(ring * (self.multiplier * w), axis=-1)
         power = _swap_halves(spec.real ** 2 + spec.imag ** 2)
         sm = EMA * power + (1.0 - EMA) * st.spec_old
         return ZoomState(st.iir, st.dec, ring, sm), sm
@@ -144,12 +140,14 @@ def pixels_db(power: jnp.ndarray, db_scale: float = 10.0,
             + db_scale * jnp.log10(jnp.maximum(power, 1e-30)))
 
 
-def smeter_dbm(audio_max_squared_ave: jnp.ndarray,
+def smeter_dbm(audio_max_squared_ave: np.ndarray,
                gain_correction: float = 0.0, attenuator: float = 0.0,
                rf_gain: float = 1.0, rf_gain_all: float = 0.0):
     """TCVSDR S-meter formula (reference `DrawSmeterBar`,
     `Display.cpp:978-982`): dbm = 22 + gainCorrection + attenuator
-    + 10 log10(audioMaxSquaredAve) - 92 - RFgain*1.5 - rfGainAllBands."""
+    + 10 log10(audioMaxSquaredAve) - 92 - RFgain*1.5 - rfGainAllBands.
+    A host-side display formula (numpy): the live runner calls it on
+    every block, where device dispatches would only add latency."""
     return (22.0 + gain_correction + attenuator
-            + 10.0 * jnp.log10(jnp.maximum(audio_max_squared_ave, 1e-30))
+            + 10.0 * np.log10(np.maximum(audio_max_squared_ave, 1e-30))
             - 92.0 - rf_gain * 1.5 - rf_gain_all)

@@ -8,7 +8,7 @@ BTE scroll `:476-492`), the dB scale (`ShowSpectrumdBScale:608`,
 `displayScale[]` `Display.cpp:127`), the bandwidth bar
 (`DrawBandwidthBar:1098`) and the S-meter bar (`DrawSmeterBar:955`).
 
-Design deviations (TPU-first, documented per PARITY.md):
+Design deviations (batch-first, documented per PARITY.md):
 
 * The chain produces whole spectrum/waterfall *tensors* per step; the
   reference's per-pixel-column interleave of DSP and SPI pushes

@@ -15,7 +15,7 @@ prototype h.  Substituting n = tK+p:
 
 i.e. the commutator feeds the phases in REVERSED order with a
 one-sample stagger — that pairing is what makes the per-branch aliases
-cancel.  On TPU the reversal is folded into the coefficients (hp_r) and
+cancel.  Here the reversal is folded into the coefficients (hp_r) and
 the DFT matrix (E2) so the frame tensor is one zero-copy reshape of the
 raw stream; the branch FIRs are P contiguous-slice multiply-adds over
 (n_out, K) frames and the phase DFT is one (K x K) complex matmul.
@@ -47,7 +47,7 @@ class Channelizer:
         # polyphase decomposition: hp[p, t] = h[t*K + p]
         self.hp = (h.reshape(taps_per_phase, num_channels).T
                    * num_channels).astype(np.float32)
-        # TPU-friendly layout (see block()): the commutator's reversed
+        # reshape-only layout (see block()): the commutator's reversed
         # phase order is folded into the coefficients and the DFT matrix
         # instead of reversing the data — hp_r[i, t] = hp[K-1-i, t] and
         # E2[k, i] = e^{+j 2pi k (K-1-i) / K}, so the frame tensor is one
@@ -56,11 +56,9 @@ class Channelizer:
         kk = np.arange(num_channels)
         self.E2 = np.exp(2j * np.pi * np.outer(
             kk, num_channels - 1 - kk) / num_channels).astype(np.complex64)
-        # packed REAL form of the phase DFT (r5 rework): with the
-        # re/im-stacked branch vector X = [vr | vi] (.., 2K), one real
-        # (2K, 2K) matmul produces [ch_r | ch_i] — at K=64 the complex
-        # einsum was 4 matmuls with a 64-lane contraction (half the MXU
-        # idle); packed, the contraction is 2K = 128-aligned
+        # packed REAL form of the phase DFT: with the re/im-stacked
+        # branch vector X = [vr | vi] (.., 2K), one real (2K, 2K) matmul
+        # produces [ch_r | ch_i] in place of a 4-matmul complex einsum
         Er, Ei = self.E2.real, self.E2.imag
         self.W2 = np.block([[Er.T, Ei.T],
                             [-Ei.T, Er.T]]).astype(np.float32)

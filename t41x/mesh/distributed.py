@@ -6,9 +6,9 @@ channels; the steady state has zero cross-host communication (channel
 parallelism is embarrassing), so scaling is limited only by per-host
 ingest.  Cross-host traffic appears only for:
 
-  * time-sharded offline captures — halo exchange over ICI within a
-    slice (t41x.mesh.halo); never over DCN by construction, because the
-    mesh is laid out with the `t` axis innermost (ICI-contiguous),
+  * time-sharded offline captures — halo exchange between neighbouring
+    time shards (t41x.mesh.halo), kept inside one host by laying the
+    mesh out with the `t` axis innermost,
   * global reductions (fleet-wide spectrum/S-meter summaries) — one
     small psum per reporting interval.
 
@@ -47,8 +47,9 @@ def initialize(coordinator_address: str | None = None,
 def global_mesh(axis: str = "ch", time_axis: str | None = None,
                 n_time: int = 1) -> Mesh:
     """Mesh over ALL devices (across hosts).  With a time axis, devices
-    are laid out (ch, t) with `t` innermost so halo ppermutes ride ICI
-    neighbors, never DCN."""
+    are laid out (ch, t) with `t` innermost, so halo ppermutes stay
+    between the cards of one host; within a host every card reaches
+    every other at the same rate, so the mesh follows the algorithm."""
     devs = np.asarray(jax.devices())
     if time_axis is None or n_time <= 1:
         return Mesh(devs, (axis,))

@@ -6,8 +6,8 @@ The reference carries filter state between consecutive 2048-sample blocks
 devices — each device holding a contiguous segment — that carried state
 becomes a halo: each device needs the last `halo` samples of its LEFT
 neighbor's segment before filtering.  This is the SDR equivalent of
-sequence parallelism, and the halo moves over ICI with a single
-`ppermute` per step (SURVEY.md §5).
+sequence parallelism, and the halo moves with a single `ppermute` per
+step (SURVEY.md §5; NCCL between GPUs).
 
 Used inside `shard_map` over a mesh axis `t`:
 

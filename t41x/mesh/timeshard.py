@@ -4,7 +4,7 @@ Completes the sequence-parallel story (SURVEY.md §7 phase 6): the RX
 chain's LTI front end — RF gain, DC-block biquad, IQ correction, Fs/4
 shift, NCO mix, x4+x2 decimation — is time-shardable because every
 carried state is either a finite filter history, exchanged via one
-`ppermute` per stage over ICI (t41x.mesh.halo), or an affine IIR state,
+`ppermute` per stage (t41x.mesh.halo), or an affine IIR state,
 composed exactly across shards from one tiny `all_gather` (the DC-block
 biquad: each shard runs zero-state, the per-shard final states compose
 by a linear n_shards-step recurrence, and the zero-input response is
@@ -247,24 +247,23 @@ def run_time_sharded_full(chain, mesh: Mesh, iq, params=None,
     blocks = jnp.moveaxis(x24.reshape(ch + (nb, blk)), -2, 0)
 
     def scan_tail(blocks, params):
-        st = chain.init_state(ch)
-        if channel_axis is not None:
-            # tail pass rides the channel axis via GSPMD: constrain the
-            # carried state so the scan stays communication-free
-            from jax.sharding import NamedSharding
-            st = jax.tree.map(
-                lambda x: jax.lax.with_sharding_constraint(
-                    x, NamedSharding(mesh, P(channel_axis))), st)
-
         def step(st, xb):
             # front-end state fields pass through unchanged: the LTI
             # front end already ran in the sharded pass
             st, outs = chain._post_frontend(params, st, xb, {}, {})
             return st, outs
 
-        return jax.lax.scan(step, st, blocks)
+        st = chain.init_state(blocks.shape[1:-1])
+        return jax.lax.scan(step, st, blocks)[1]
 
-    _, outs = jax.jit(scan_tail)(blocks, params)
+    if channel_axis is not None:
+        # the tail rides the channel axis: every device runs the tail of
+        # its own channels (kernels included), communication-free
+        scan_tail = jax.shard_map(
+            scan_tail, mesh=mesh,
+            in_specs=(P(None, channel_axis), P(channel_axis)),
+            out_specs=P(None, channel_axis), check_vma=False)
+    outs = jax.jit(scan_tail)(blocks, params)
 
     def flatten(leaf):
         if leaf.ndim == len(ch) + 2:

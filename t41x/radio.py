@@ -21,6 +21,7 @@ import numpy as np
 from t41x import constants as C
 from t41x.chain import ChainSpec, ChannelParams, RxChain, default_params
 from t41x.config import RadioConfig
+from t41x.kernels import agc_kernel_for
 
 
 class Radio:
@@ -220,11 +221,7 @@ class Radio:
                 cw_filter_index=cfg.cw_filter_index,
                 cw_tone_hz=cfg.cw_sidetone_hz,
                 interpolate_out=False,
-                # production fast path on TPU only: the kernels are
-                # Mosaic-TPU (pltpu memory spaces) and would fail to
-                # compile on GPU; CPU keeps the XLA path (the Pallas
-                # interpreter is for parity tests, not live streaming)
-                use_pallas=jax.default_backend() == "tpu",
+                agc_kernel=agc_kernel_for(jax.default_backend()),
             )
             self._chain = RxChain(spec)
             self._chain_spec = spec

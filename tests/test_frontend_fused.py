@@ -1,14 +1,14 @@
-"""Full-chain parity: ChainSpec(use_pallas=True) vs the plain XLA path.
+"""Full-chain parity: the chain with the AGC kernel vs the plain chain.
 
-The Pallas kernels auto-select interpreter mode on CPU
-(`frontend_pallas.FusedFrontEnd.__init__`, `agc_pallas._auto_interpret`,
-`os_filter_pallas.os_filter_matmul_pallas`), so these tests exercise the
-exact production fused graph structure on the CI backend.  Covered per
-VERDICT r2 item 1: multi-block state carry, channel counts that are NOT
-multiples of the 128-channel tile, non-trivial per-channel params
-(NCO/gain/IQ correction), spectrum-tap and no-tap OS-filter paths,
-zoomed (kernel auto-disabled) vs unzoomed chains, and state
-interchangeability between the fused and plain front ends.
+The production chain on the GPU runs the AGC recurrence as the Triton
+kernel (`ChainSpec(agc_kernel="triton")`); here the same kernel runs in
+the Pallas interpreter (`agc_kernel="interpret"`), so these tests
+exercise the production graph structure on the CPU.  Covered:
+multi-block state carry, channel counts that are not multiples of the
+kernel's channel tile, non-trivial per-channel params (NCO/gain/IQ
+correction), spectrum-tap and no-tap OS-filter paths, the AM/SAM tails,
+the zoom display taps, and state interchangeability between the kernel
+and scan chains.
 """
 
 import dataclasses
@@ -73,20 +73,17 @@ def _assert_state_close(sa, sb, rtol=2e-3, atol=5e-4):
 
 
 def _compare(spec_kw, ch, blocks=3, out_keys=("audio", "audio_24k")):
-    plain = ChainSpec(use_pallas=False, **spec_kw)
-    fused = ChainSpec(use_pallas=True, **spec_kw)
+    plain = ChainSpec(agc_kernel=None, **spec_kw)
+    fused = ChainSpec(agc_kernel="interpret", **spec_kw)
     _, st_p, out_p = _stream(plain, ch, blocks)
     chain_f, st_f, out_f = _stream(fused, ch, blocks)
-    assert chain_f.fused_fe is not None, "fused kernel not engaged"
+    assert chain_f.spec.agc_kernel == "interpret"
     for k in out_keys:
         ref = np.asarray(out_p[k])
         if k == "rf_spectrum":
             # power-spectrum bins span many orders of magnitude; a 1e-7
             # fp32 input difference is relatively large on near-empty
             # bins, so compare against the spectrum's own scale
-            # the fused zoom IIR runs in composed state-space form:
-            # ~1e-3-of-full-scale fp32 rounding vs the per-stage
-            # cascade, i.e. ~0.01 dB on the displayed spectrum
             np.testing.assert_allclose(
                 np.asarray(out_f[k]), ref, rtol=2e-4,
                 atol=2e-3 * float(np.max(np.abs(ref))), err_msg=k)
@@ -108,15 +105,15 @@ def test_fused_usb_full_chain_multiblock_state_carry():
 
 
 def test_fused_non_tile_multiple_channels():
-    # 5 and 130 channels: below and straddling the 128-channel Pallas
-    # tile, exercising the pad/unpad plumbing in FusedFrontEnd.block
+    # 5 and 130 channels: not multiples of the kernel's channel tile,
+    # exercising the pad/trim plumbing in agc_triton.agc_gain
     _compare(dict(mode="usb"), ch=5, blocks=2)
     _compare(dict(mode="usb"), ch=130, blocks=2)
 
 
 def test_fused_no_spectrum_taps_os_kernel_path():
-    # spectrum_taps=False routes the OS filter through the Pallas matmul
-    # kernel (os_filter_matmul_pallas) instead of the split-form taps
+    # spectrum_taps=False routes the OS filter through the single
+    # operator matmul instead of the split-form taps
     _compare(dict(mode="usb", spectrum_taps=False, interpolate_out=False),
              ch=4, blocks=3)
 
@@ -128,7 +125,7 @@ def test_fused_am_tail():
 def test_fused_sam_tail_post_lock():
     # The SAM PLL is chaotic during the lock transient — a 1e-7 input
     # perturbation alone produces ~4e-3 audio differences — so strict
-    # fused-vs-plain parity is only meaningful after lock.  Put the
+    # kernel-vs-scan parity is only meaningful after lock.  Put the
     # carrier where the PLL can capture it (NCO centered), stream 6
     # blocks, and require both paths to converge to the same carrier
     # estimate and near-identical post-lock audio.
@@ -145,7 +142,7 @@ def test_fused_sam_tail_post_lock():
           ).astype(np.complex64)
     kw = dict(mode="sam", f_lo=-3000.0, f_hi=3000.0)
     _, st_p, out_p = _stream(ChainSpec(**kw), ch, blocks, params, iq)
-    _, st_f, out_f = _stream(ChainSpec(use_pallas=True, **kw),
+    _, st_f, out_f = _stream(ChainSpec(agc_kernel="interpret", **kw),
                              ch, blocks, params, iq)
     # both locked to the true 30 Hz carrier offset
     np.testing.assert_allclose(np.asarray(out_p["sam_carrier_hz"]),
@@ -155,41 +152,39 @@ def test_fused_sam_tail_post_lock():
                                atol=0.2)
     a_p = np.asarray(out_p["audio_24k"])
     a_f = np.asarray(out_f["audio_24k"])
-    # 3% of full scale: the locked PLL still amplifies the fused
-    # decimators' different fp32 summation order near zero crossings
+    # 3% of full scale: the locked PLL amplifies any fp32 rounding
+    # difference upstream of it near zero crossings
     np.testing.assert_allclose(a_f, a_p, rtol=0.02,
                                atol=0.03 * np.max(np.abs(a_p)))
 
 
 def test_fused_zoom1_tap_in_kernel():
-    # zoom x1: the fused kernel emits the pre-fs4 IQ-corrected display
-    # segment; spectrum tail matches the unfused CalcZoom1Magn path
+    # zoom x1 (the flagship's panadapter, CalcZoom1Magn) beside the
+    # kernel AGC: display spectrum and audio match the scan chain
     spec_kw = dict(mode="usb", spectrum_zoom=0)
-    chain = RxChain(ChainSpec(use_pallas=True, **spec_kw))
-    assert chain.fused_fe is not None and chain.fused_fe.zoom == 0
+    chain = RxChain(ChainSpec(agc_kernel="interpret", **spec_kw))
+    assert chain.zoomfft is None
     _compare(spec_kw, ch=4, blocks=3,
              out_keys=("audio", "audio_24k", "rf_spectrum"))
 
 
 def test_fused_zoom_iir_tap_in_kernel():
-    # zoom 2^z: the composed-state-space elliptic IIR + strided
-    # decimator run inside the fused kernel; the carried ZoomState
-    # (per-stage df2T states + decimator history) stays interchangeable
-    # with the unfused path, and the displayed spectrum matches
+    # zoom 2^z (elliptic IIR + strided decimator) beside the kernel AGC:
+    # the displayed spectrum and audio match the scan chain
     for zoom in (1, 3, 7):
         spec_kw = dict(mode="usb", spectrum_zoom=zoom)
-        chain = RxChain(ChainSpec(use_pallas=True, **spec_kw))
-        assert chain.fused_fe is not None and chain.fused_fe.zoom == zoom
+        chain = RxChain(ChainSpec(agc_kernel="interpret", **spec_kw))
+        assert chain.zoomfft.zoom == zoom
         _compare(spec_kw, ch=4, blocks=3,
                  out_keys=("audio", "audio_24k", "rf_spectrum"))
 
 
 def test_fused_zoom_state_interchange_with_plain():
-    # run 2 blocks fused, hand the full state (incl. ZoomState) to the
-    # plain chain for 2 more, and vice versa — mid-stream equivalence
+    # run 2 blocks with the kernel AGC, hand the full state (incl.
+    # ZoomState) to the scan chain for 2 more, and vice versa
     ch, blocks = 3, 4
     spec_p = ChainSpec(mode="usb", spectrum_zoom=2)
-    spec_f = ChainSpec(mode="usb", spectrum_zoom=2, use_pallas=True)
+    spec_f = ChainSpec(mode="usb", spectrum_zoom=2, agc_kernel="interpret")
     chain_p, chain_f = RxChain(spec_p), RxChain(spec_f)
     params = _params(ch)
     iq = _iq(ch, blocks)
@@ -200,8 +195,8 @@ def test_fused_zoom_state_interchange_with_plain():
     st_b = chain_p.init_state((ch,))
     outs_a, outs_b = [], []
     for b in range(blocks):
-        ca = chain_f if b < 2 else chain_p   # fused -> plain
-        cb = chain_p if b < 2 else chain_f   # plain -> fused
+        ca = chain_f if b < 2 else chain_p   # kernel -> scan
+        cb = chain_p if b < 2 else chain_f   # scan -> kernel
         st_a, oa = ca.block(params, st_a, jnp.asarray(blks[:, b]))
         st_b, ob = cb.block(params, st_b, jnp.asarray(blks[:, b]))
         outs_a.append(oa["rf_spectrum"])
@@ -212,13 +207,13 @@ def test_fused_zoom_state_interchange_with_plain():
 
 
 def test_fused_state_interchangeable_with_plain():
-    # mid-stream handoff: run 2 blocks fused, then feed the state into
-    # the plain chain (and vice versa) — the carried pytrees are the
-    # same layout and semantics, so outputs must keep matching
+    # mid-stream handoff: alternate the kernel and scan chains block by
+    # block — the carried pytrees are the same layout and semantics, so
+    # outputs must keep matching
     ch, blocks = 4, 4
     kw = dict(mode="usb")
-    plain = RxChain(ChainSpec(use_pallas=False, **kw))
-    fused = RxChain(ChainSpec(use_pallas=True, **kw))
+    plain = RxChain(ChainSpec(agc_kernel=None, **kw))
+    fused = RxChain(ChainSpec(agc_kernel="interpret", **kw))
     params = _params(ch)
     iq = _iq(ch, blocks)
     sp = jax.jit(plain.block)
@@ -229,7 +224,7 @@ def test_fused_state_interchangeable_with_plain():
     for b in range(blocks):
         blk = iq[:, b * C.BLOCK_SIZE:(b + 1) * C.BLOCK_SIZE]
         st_ref, out_ref = sp(params, st_ref, blk)
-        step = sf if b % 2 == 0 else sp  # alternate fused/plain
+        step = sf if b % 2 == 0 else sp  # alternate kernel/scan
         st_mix, out_mix = step(params, st_mix, blk)
         np.testing.assert_allclose(np.asarray(out_mix["audio_24k"]),
                                    np.asarray(out_ref["audio_24k"]),
@@ -238,18 +233,23 @@ def test_fused_state_interchangeable_with_plain():
 
 
 def test_fused_default_spec_is_production_spec():
-    # bench.py's default configuration must be the fused production path
-    import bench  # noqa: F401 — the defaults live in argparse; assert here
-    spec = ChainSpec(use_pallas=True, spectrum_taps=True,
+    # the production chain on the card takes the compiled AGC kernel,
+    # and bench.py's defaults time it with every display tap on
+    import bench
+    from t41x.kernels import agc_kernel_for
+
+    spec = ChainSpec(agc_kernel=agc_kernel_for("gpu"), spectrum_taps=True,
                      interpolate_out=True)
-    assert dataclasses.asdict(spec)["use_pallas"]
+    assert dataclasses.asdict(spec)["agc_kernel"] == "triton"
+    assert set(bench._PEAKS["NVIDIA H100 80GB HBM3"]) == {
+        "bf16", "tf32", "fp32", "hbm_bytes"}
 
 
 def test_q15_ingest_fused_matches_unfused_q15():
     # ADC q15 int16 ingest (Process.cpp:102-111 arm_q15_to_float):
-    # the fused kernel converts on load with the 1/32768 scale folded
-    # into the RF gain; the unfused path converts at ingest.  Both must
-    # match the f32 path fed the same quantized values exactly.
+    # the chain converts at ingest; with the scan AGC it must match the
+    # f32 path fed the same quantized values exactly, and with the
+    # kernel AGC to fp32 rounding.
     ch, blocks = 6, 3
     iq = _iq(ch, blocks)
     i16 = np.clip(np.round(iq.real * 32768.0), -32768, 32767).astype(np.int16)
@@ -273,7 +273,7 @@ def test_q15_ingest_fused_matches_unfused_q15():
     st_qp, out_qp = stream(ChainSpec(mode="usb", q15_input=True),
                            (i16, q16), True)
     st_qf, out_qf = stream(
-        ChainSpec(mode="usb", q15_input=True, use_pallas=True),
+        ChainSpec(mode="usb", q15_input=True, agc_kernel="interpret"),
         (i16, q16), True)
     for k in ("audio", "audio_24k"):
         np.testing.assert_allclose(np.asarray(out_qp[k]),

@@ -199,12 +199,10 @@ def test_ft8_adaptive_candidates_scale_with_occupancy():
     # count survivors above the floor for quiet vs crowded
     import jax.numpy as jnp
 
-    from t41x.utils.transfer import fetch
-
     def n_above(slot):
         _, pool = ft8_decode._jit_wf_pool(
             jnp.asarray(slot, jnp.float32), ft8_decode._K_POOL)
-        return int(np.sum(fetch(pool.score) >= ft8_decode.SCORE_FLOOR))
+        return int(np.sum(np.asarray(pool.score) >= ft8_decode.SCORE_FLOOR))
 
     quiet, _ = _crowded_slot(1, seed=11)
     crowded, _ = _crowded_slot(15, seed=11)

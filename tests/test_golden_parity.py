@@ -1,4 +1,4 @@
-"""Full-chain golden parity: the jitted TPU chain vs an independent
+"""Full-chain golden parity: the jitted chain vs an independent
 NumPy oracle built from the same filter designs (SURVEY.md §4 test
 strategy item 2 — with no runnable reference firmware, the oracle chain
 plays the role of the recorded golden output; every stage is composed

@@ -120,6 +120,27 @@ def test_kim_nr_matches_per_hop_reference():
                                rtol=2e-3, atol=1e-4)
 
 
+def test_kim_nr_ring_wraparound_matches_per_hop_reference():
+    """Nine blocks = 18 hops, past the 15-slot minimum-statistics ring:
+    the order-free ring and its cursor must keep matching the shift
+    registers after the cursor wraps."""
+    p = NR.kim_params(200.0, 3000.0)
+    ch, blocks = 5, 9
+    x = _signal(ch, blocks, seed=23)
+    st = jax.tree.map(jnp.asarray, NR.kim_state((ch,)))
+    naive = NaiveKim(p, ch)
+    for bi in range(blocks):
+        blk = x[:, bi * L:(bi + 1) * L]
+        st, y = NR.kim_nr(p, st, jnp.asarray(blk))
+        np.testing.assert_allclose(np.asarray(y), naive.block(blk),
+                                   rtol=2e-4, atol=2e-4,
+                                   err_msg=f"block {bi}")
+    np.testing.assert_allclose(
+        np.sort(np.moveaxis(np.asarray(st.E), -2, -1), -1),
+        np.sort(naive.E, -1), rtol=2e-3, atol=1e-5)
+    assert int(np.asarray(st.idx)[0]) == 2 * blocks
+
+
 # ----------------------------------------------------------------------
 # naive per-hop spectral NR
 # ----------------------------------------------------------------------

@@ -1,213 +1,123 @@
-"""Pallas kernel parity tests (interpreter mode; compiled-mode runs on
-the real chip via bench --pallas)."""
+"""AGC Triton kernel parity in the Pallas interpreter, the wrapper's
+padding and the choice of kernel.  The compiled kernel runs on the card
+through `chip_smoke.py` and the `gpu`-marked test below."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from t41x.dsp import firdesign as fd, osfilter
-from t41x.kernels import os_filter_matmul_pallas
-
-RNG = np.random.default_rng(5)
+from t41x.dsp import agc as A
 
 
-def test_os_filter_pallas_matches_matmul_path():
-    mask = fd.bandpass_mask(200.0, 3000.0)
-    W = jnp.asarray(osfilter.os_matmul_operator(mask))
-    x = (RNG.standard_normal((8, 256))
-         + 1j * RNG.standard_normal((8, 256))).astype(np.complex64)
-    s = jnp.asarray(osfilter.os_state((8,)))
-    s2, y2 = osfilter.os_filter_matmul(s, jnp.asarray(x), W)
-    sp, yp = os_filter_matmul_pallas(s, jnp.asarray(x), W, interpret=True)
-    np.testing.assert_allclose(np.asarray(yp), np.asarray(y2),
-                               rtol=2e-3, atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(sp), np.asarray(s2))
+def _stream(p, st, x, blocks, kernel):
+    ys = []
+    for b in range(blocks):
+        st, y = A.agc_apply(p, st, jnp.asarray(x[b]), kernel=kernel)
+        ys.append(y)
+    return st, ys
+
+
+def _blocks(ch, n, blocks, seed):
+    rng = np.random.default_rng(seed)
+    # alternate loud and quiet blocks so attack, hang and decay all run
+    scale = np.where(np.arange(blocks) % 2, 0.05, 1.0)[:, None, None]
+    return ((rng.standard_normal((blocks, ch, n))
+             + 1j * rng.standard_normal((blocks, ch, n))) * scale
+            ).astype(np.complex64)
+
+
+def _assert_agc_equal(st_p, y_p, st_s, y_s):
+    np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_s),
+                               rtol=1e-6, atol=1e-7)
+    for f in st_s._fields:
+        np.testing.assert_allclose(
+            np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
+            rtol=1e-6, atol=1e-7, err_msg=f)
 
 
 def test_agc_block_pallas_matches_scan_path():
-    """The whole-block AGC kernel (prework + recurrence + gain fused) —
-    the production path agc_apply takes when N >= attack_buffsize."""
-    import jax
-
-    from t41x.dsp import agc as A
-    from t41x.kernels.agc_pallas import agc_block_pallas
-
+    """The Triton kernel (interpreted) vs the lax.scan path over several
+    256-sample blocks with the state carried."""
     p = A.agc_params(2)
-    rng = np.random.default_rng(7)
-    ch, n = 5, 256   # deliberately not a whole (8, 128) tile
+    ch, n = 5, 256
+    x = _blocks(ch, n, 3, seed=7)
     st = jax.tree.map(jnp.asarray, A.agc_state(p, (ch,)))
-    x = (rng.standard_normal((ch, n))
-         + 1j * rng.standard_normal((ch, n))).astype(np.complex64)
-
-    st_s = st_p = st
-    for _ in range(3):  # stream several blocks to exercise the carry
-        st_s, y_s = A.agc_apply(p, st_s, jnp.asarray(x))
-        st_p, y_p = agc_block_pallas(p, st_p, jnp.asarray(x),
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_s),
-                               rtol=1e-6, atol=1e-7)
-    for f in st_s._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
-            rtol=1e-6, atol=1e-7, err_msg=f)
-
-
-def test_agc_block_pallas_rejects_short_blocks():
-    import jax
-    import pytest
-
-    from t41x.dsp import agc as A
-    from t41x.kernels.agc_pallas import agc_block_pallas
-
-    p = A.agc_params(2)
-    st = jax.tree.map(jnp.asarray, A.agc_state(p, (2,)))
-    x = jnp.zeros((2, p.attack_buffsize // 2), jnp.complex64)
-    with pytest.raises(ValueError, match="attack_buffsize"):
-        agc_block_pallas(p, st, x, interpret=True)
+    st_s, y_s = _stream(p, st, x, 3, None)
+    st_p, y_p = _stream(p, st, x, 3, "interpret")
+    _assert_agc_equal(st_p, y_p[-1], st_s, y_s[-1])
 
 
 def test_agc_scan_pallas_short_block_path():
-    """N < attack_buffsize routes agc_apply(use_pallas=True) through the
-    recurrence-only kernel (agc_scan_pallas) — keep it covered."""
-    import jax
-
-    from t41x.dsp import agc as A
-
+    """Blocks shorter than the look-ahead (N < attack_buffsize) go
+    through the same kernel."""
     p = A.agc_params(2)
     assert p.attack_buffsize > 64
-    rng = np.random.default_rng(11)
-    ch, n = 5, 64    # n < attack_buffsize=96 -> scan-pallas branch
+    ch, n = 5, 64
+    x = _blocks(ch, n, 4, seed=11)
     st = jax.tree.map(jnp.asarray, A.agc_state(p, (ch,)))
-    x = (rng.standard_normal((ch, n))
-         + 1j * rng.standard_normal((ch, n))).astype(np.complex64)
-
-    st_s = st_p = st
-    for _ in range(4):
-        st_s, y_s = A.agc_apply(p, st_s, jnp.asarray(x))
-        st_p, y_p = A.agc_apply(p, st_p, jnp.asarray(x), use_pallas=True)
-    np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_s),
-                               rtol=1e-6, atol=1e-7)
-    for f in st_s._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
-            rtol=1e-6, atol=1e-7, err_msg=f)
+    st_s, y_s = _stream(p, st, x, 4, None)
+    st_p, y_p = _stream(p, st, x, 4, "interpret")
+    _assert_agc_equal(st_p, y_p[-1], st_s, y_s[-1])
 
 
-def test_xanr_pallas_matches_scan_path():
-    import jax
-
-    from t41x.dsp import nr as NR
-    from t41x.kernels.xanr_pallas import xanr_block_pallas
-
-    rng = np.random.default_rng(9)
-    ch, n = 7, 256   # not a whole (8, 128) tile
-    x = rng.standard_normal((ch, n)).astype(np.float32) * 0.2
-    for notch in (False, True):
-        p = NR.XanrParams(notch=notch)
-        st_s = jax.tree.map(jnp.asarray, NR.xanr_state(p, (ch,)))
-        st_p = st_s
-        for _ in range(3):  # carry crosses block boundaries
-            st_s, y_s = NR.xanr(p, st_s, jnp.asarray(x))
-            st_p, y_p = xanr_block_pallas(p, st_p, jnp.asarray(x),
-                                          interpret=True)
-        np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_s),
-                                   rtol=1e-5, atol=1e-6,
-                                   err_msg=f"notch={notch}")
-        for f in st_s._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
-                rtol=1e-5, atol=1e-6, err_msg=f"{f} notch={notch}")
+@pytest.mark.parametrize("ch", [1, 127, 129, 1000, 1030])
+def test_agc_kernel_pads_channels(ch):
+    """Odd channel counts: the wrapper pads to a whole number of tiles
+    (1030 = 128 tiles of 8 and 6 more) and trims, and every channel
+    matches the scan."""
+    p = A.agc_params(4)
+    x = _blocks(ch, 32, 2, seed=ch)
+    st = jax.tree.map(jnp.asarray, A.agc_state(p, (ch,)))
+    st_s, y_s = _stream(p, st, x, 2, None)
+    st_p, y_p = _stream(p, st, x, 2, "interpret")
+    assert y_p[-1].shape == (ch, 32)
+    _assert_agc_equal(st_p, y_p[-1], st_s, y_s[-1])
 
 
-def test_sam_pallas_matches_scan_path():
-    import jax
+def test_agc_kernel_tiles_fill_the_card():
+    """1024 channels spread over (nearly) all 132 SMs; tiles are powers
+    of two and never exceed four warps."""
+    from t41x.kernels.agc_triton import tile_channels
 
-    from t41x.demod import sam as S
-    from t41x.kernels.sam_pallas import sam_block_pallas
+    for c, programs in ((1024, 128), (4096, 128), (1000, 125)):
+        t = tile_channels(c)
+        assert t & (t - 1) == 0 and -(-c // t) == programs, (c, t)
+    assert tile_channels(1 << 20) == 128
+    assert tile_channels(1) == 1
 
-    rng = np.random.default_rng(13)
-    ch, n = 9, 256
-    p = S.sam_params()
-    t = np.arange(3 * n) / 24000.0
-    carrier = np.exp(2j * np.pi * 120.0 * t) * (1.0 + 0.4 * np.cos(
-        2 * np.pi * 400.0 * t))
-    y = (carrier[None] * (0.5 + 0.5 * rng.random((ch, 1)))
-         + 0.01 * (rng.standard_normal((ch, 3 * n))
-                   + 1j * rng.standard_normal((ch, 3 * n)))
-         ).astype(np.complex64)
-    st_s = jax.tree.map(jnp.asarray, S.sam_state((ch,)))
-    st_p = st_s
-    for b in range(3):
-        blk = jnp.asarray(y[:, b * n:(b + 1) * n])
-        st_s, a_s, c_s = S.sam_demod(p, st_s, blk)
-        st_p, a_p, c_p = S.sam_demod(p, st_p, blk, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_s),
+
+def test_agc_kernel_choice_follows_platform():
+    """The GPU takes the compiled kernel; any other platform the plain
+    scan; interpret mode is only ever asked for by name."""
+    from t41x.chain import ChainSpec
+    from t41x.kernels import agc_kernel_for
+    from t41x.radio import Radio
+
+    assert agc_kernel_for("gpu") == "triton"
+    assert agc_kernel_for("cpu") is None
+    assert jax.default_backend() == "cpu"
+    assert Radio().chain.spec.agc_kernel is None
+    with pytest.raises(ValueError, match="AGC kernel"):
+        ChainSpec(agc_kernel="mosaic")
+    p = A.agc_params(2)
+    st = A.agc_state(p, (2,))
+    with pytest.raises(ValueError, match="AGC kernel"):
+        A.agc_apply(p, st, jnp.zeros((2, 256), jnp.complex64),
+                    kernel="auto")
+
+
+@pytest.mark.gpu
+def test_agc_kernel_compiled_matches_scan(gpu_device):
+    """On the card: the compiled kernel vs the scan at 1000 channels."""
+    p = A.agc_params(2)
+    ch = 1000
+    x = _blocks(ch, 256, 4, seed=3)
+    st = jax.tree.map(jnp.asarray, A.agc_state(p, (ch,)))
+    st_s, y_s = _stream(p, st, x, 4, None)
+    st_p, y_p = _stream(p, st, x, 4, "triton")
+    for f in ("hang_counter", "decay_type", "state"):
+        np.testing.assert_array_equal(np.asarray(getattr(st_p, f)),
+                                      np.asarray(getattr(st_s, f)))
+    np.testing.assert_allclose(np.asarray(y_p[-1]), np.asarray(y_s[-1]),
                                rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(c_p), np.asarray(c_s),
-                               rtol=1e-5, atol=1e-4)
-    for f in st_s._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
-            rtol=1e-5, atol=1e-5, err_msg=f)
-
-
-def test_kim_gains_pallas_matches_xla_path():
-    """Both hops' Kim gain recursions in one Pallas program (ring
-    rewrites in VMEM) — matches the chained _kim_gain XLA path over
-    streamed blocks, across the 15-slot ring wraparound."""
-    import jax
-
-    from t41x.dsp import nr as NR
-
-    p = NR.kim_params(200.0, 3000.0)
-    rng = np.random.default_rng(23)
-    ch, blocks = 5, 9   # 18 hops > 15-slot ring
-    st_s = jax.tree.map(jnp.asarray, NR.kim_state((ch,)))
-    st_p = st_s
-    for bi in range(blocks):
-        x = rng.standard_normal((ch, 256)).astype(np.float32) * 0.3
-        st_s, y_s = NR.kim_nr(p, st_s, jnp.asarray(x))
-        st_p, y_p = NR.kim_nr(p, st_p, jnp.asarray(x), use_pallas=True)
-        np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_s),
-                                   rtol=1e-5, atol=1e-5,
-                                   err_msg=f"block {bi}")
-    for f in st_s._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(st_p, f)), np.asarray(getattr(st_s, f)),
-            rtol=1e-5, atol=1e-6, err_msg=f)
-
-
-def test_fused_interp_matches_fir_interpolate():
-    """FusedInterp (x2+x4+volume in one program) vs the streaming
-    fir.fir_interpolate pair, multi-block with carried histories."""
-    import jax
-
-    from t41x import constants as C
-    from t41x.dsp import fir, firdesign as fd
-    from t41x.kernels.interp_pallas import FusedInterp
-
-    h1, h2 = fd.interpolation_prototypes(3000.0)
-    ch, blocks, n = 5, 4, 256
-    fi = FusedInterp(h1, h2)
-    rng = np.random.default_rng(3)
-    xs = rng.standard_normal((blocks, ch, n)).astype(np.float32) * 0.4
-    vol = np.linspace(0.5, 2.0, ch).astype(np.float32)
-
-    i1 = np.zeros((ch, fi.sub1 - 1), np.float32)
-    i2 = np.zeros((ch, fi.sub2 - 1), np.float32)
-    i1f, i2f = jnp.asarray(i1), jnp.asarray(i2)
-    ap = jax.jit(fi.apply)
-    for b in range(blocks):
-        x = jnp.asarray(xs[b])
-        # reference: two streaming convs then the scale
-        i1, a = fir.fir_interpolate(i1, x, jnp.asarray(
-            h1.astype(np.float32)), C.DF2)
-        i2, a = fir.fir_interpolate(i2, a, jnp.asarray(
-            h2.astype(np.float32)), C.DF1)
-        ref = np.asarray(a) * vol[:, None]
-        i1f, i2f, y = ap(x, i1f, i2f, jnp.asarray(vol))
-        np.testing.assert_allclose(np.asarray(y), ref, rtol=2e-5,
-                                   atol=2e-6, err_msg=f"block {b}")
-        np.testing.assert_allclose(np.asarray(i1f), np.asarray(i1),
-                                   rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(i2f), np.asarray(i2),
-                                   rtol=2e-5, atol=2e-6)

@@ -31,46 +31,34 @@ def main() -> None:
     sys.path.insert(0, ".")
     from t41x import constants as C
     from t41x.chain import ChainSpec, RxChain, default_params
-    from t41x.utils import creal
 
+    from t41x.kernels import agc_kernel_for
+    from t41x.utils import compile_cache
+
+    compile_cache.enable()
+    kernel = agc_kernel_for(jax.default_backend())
     variants = {
         "full": dict(),
+        "agc_scan": dict(agc_kernel=None),
         "agc_off": dict(agc_mode=0),
         "fft_osfilter": dict(use_matmul_osfilter=False),
         "no_spectrum_taps": dict(spectrum_taps=False),
         "no_interp": dict(interpolate_out=False),
         "front_end_only": dict(mode="psk31", interpolate_out=False),
         "nr_spectral": dict(nr_mode=2),
+        "nr_spectral_batch": dict(nr_mode=2, _batched=True),
+        "nr_kim": dict(nr_mode=1),
         "nr_lms": dict(nr_mode=3),
+        "notch": dict(notch_on=True),
+        "eq": dict(eq_on=True),
         "sam": dict(mode="sam"),
         "nfm": dict(mode="nfm"),
-        "pallas": dict(use_pallas=True),
-        "pallas_nospec": dict(use_pallas=True, spectrum_taps=False),
-        "pallas_agc_off": dict(use_pallas=True, agc_mode=0),
-        "pallas_no_interp": dict(use_pallas=True, interpolate_out=False),
-        "pallas_fe_only": dict(use_pallas=True, mode="psk31", interpolate_out=False),
-        "pallas_nr_lms": dict(use_pallas=True, nr_mode=3),
-        "pallas_sam": dict(use_pallas=True, mode="sam"),
-        "pallas_nfm": dict(use_pallas=True, mode="nfm"),
-        "pallas_nr_spectral": dict(use_pallas=True, nr_mode=2),
-        "pallas_nr_kim": dict(use_pallas=True, nr_mode=1),
-        "pallas_notch": dict(use_pallas=True, notch_on=True),
-        "pallas_eq": dict(use_pallas=True, eq_on=True),
-        "pallas_cw": dict(use_pallas=True, mode="cw"),
-        "pallas_q15": dict(use_pallas=True, q15_input=True),
-        "pallas_q15_fe_only": dict(use_pallas=True, q15_input=True,
-                                   mode="psk31", interpolate_out=False),
+        "cw": dict(mode="cw"),
+        "q15": dict(q15_input=True),
+        "zoom1": dict(spectrum_zoom=0),
         "zoom2": dict(spectrum_zoom=1),
-        # cross-block NR batching (chain.block_batch): the scan's NR
-        # stage lifts out and runs once per 8-block batch
-        "pallas_nr_kim_batch": dict(use_pallas=True, nr_mode=1,
-                                    _batched=True),
-        "pallas_nr_spectral_batch": dict(use_pallas=True, nr_mode=2,
-                                         _batched=True),
-        "pallas_zoom1": dict(use_pallas=True, spectrum_zoom=0),
-        "pallas_zoom2": dict(use_pallas=True, spectrum_zoom=1),
-        "pallas_zoom8": dict(use_pallas=True, spectrum_zoom=3),
-        "pallas_zoom128": dict(use_pallas=True, spectrum_zoom=7),
+        "zoom8": dict(spectrum_zoom=3),
+        "zoom128": dict(spectrum_zoom=7),
     }
     if args.variants:
         keep = args.variants.split(",")
@@ -85,8 +73,9 @@ def main() -> None:
     def floor() -> float:
         f = jax.jit(lambda v: v + 1.0)
         v = jnp.zeros((), jnp.float32)
-        float(f(v))
-        return min(_t_one(lambda: float(f(v))) for _ in range(8))
+        jax.block_until_ready(f(v))
+        return min(_t_one(lambda: jax.block_until_ready(f(v)))
+                   for _ in range(8))
 
     def _t_one(fn):
         t0 = time.perf_counter()
@@ -100,9 +89,10 @@ def main() -> None:
     for name, kw in variants.items():
         kw = dict(kw)
         batched = kw.pop("_batched", False)
-        spec = ChainSpec(**{**dict(interpolate_out=True), **kw})
+        spec = ChainSpec(**{**dict(interpolate_out=True,
+                                   agc_kernel=kernel), **kw})
         chain = RxChain(spec)
-        params = jax.tree.map(np.asarray, default_params((n_ch,)))
+        params = default_params((n_ch,))
 
         def mk(repeats):
             def chk(out):
@@ -136,7 +126,7 @@ def main() -> None:
                                           (st, jnp.float32(0.0)))
                 return e
 
-            run = creal.cjit(body)
+            run = jax.jit(body)
             if spec.q15_input:
                 blocks = (
                     np.clip(np.round(iq.real * 32768.0), -32768,
@@ -144,24 +134,25 @@ def main() -> None:
                     np.clip(np.round(iq.imag * 32768.0), -32768,
                             32767).astype(np.int16))
             else:
-                blocks = creal.csplit(iq)
-            st = creal.csplit(chain.init_state((n_ch,)))
+                blocks = iq
+            st = chain.init_state((n_ch,))
             blocks, st, p = jax.device_put((blocks, st, params))
             jax.block_until_ready((blocks, st, p))
             return run, blocks, st, p
 
         try:
+            def go():
+                jax.block_until_ready(run(blocks, st, p))
+
             run, blocks, st, p = mk(1)
-            float(run(blocks, st, p))
-            t1 = min(_t_one(lambda: float(run(blocks, st, p)))
-                     for _ in range(2))
+            go()
+            t1 = min(_t_one(go) for _ in range(2))
             per = max(t1 - floor_s, t1 / 10, 1e-5)
             repeats = max(1, int(np.ceil(args.min_ms / 1e3 / per)))
             if repeats > 1:
                 run, blocks, st, p = mk(repeats)
-                float(run(blocks, st, p))
-            t = min(_t_one(lambda: float(run(blocks, st, p)))
-                    for _ in range(3))
+                go()
+            t = min(_t_one(go) for _ in range(3))
             n_blk = repeats * args.blocks
             us_blk = (t - floor_s) / n_blk * 1e6
             rate = n_blk * n_ch * C.BLOCK_SIZE / (t - floor_s)
